@@ -263,6 +263,41 @@ def _pad_chunk(arr: np.ndarray, size: int) -> np.ndarray:
     return jnp.pad(arr, pad)
 
 
+def semi_plan(
+    shape: Tuple[int, int], bit_len: np.ndarray, block_len: int, coder: str
+) -> Tuple[int, np.ndarray | None]:
+    """(total_tiles, rice tile counts) for the device semi compaction.
+
+    shape: the [B, W] device payload rows; bit_len: host array for the REAL
+    blocks only. total_tiles is a static bucketed capacity (the gather
+    never pays for dead capacity: the full uncompressed cap holds ~4x the
+    live tiles at typical ratios). The rice tile counts are exact and
+    host-known ([B] i64, zero on padding rows); vertical has none.
+    """
+    from dctpu.constants import subs_per_block, sync_words
+    from dctpu.kernels import ragged
+
+    B, W = shape
+    L = block_len
+    nb = int(np.asarray(bit_len).size)  # real blocks
+    if coder == "vertical":
+        S = subs_per_block(L)
+        SWT = -(-sync_words(L) // ragged.VERT_TILE)
+        RPT = ragged.REGION_PAD // ragged.VERT_TILE
+        # host upper bound on live tiles from bit_len: per block SWT sync
+        # tiles + ceil-per-sub body tiles <= ceil(body_words/TILE) + S - 1.
+        body_words = int(np.asarray(bit_len, dtype=np.int64).sum()) // 32
+        ub = B * SWT + nb * S + -(-body_words // ragged.VERT_TILE)
+        return min(ragged.tile_bucket(ub), B * (SWT + S * RPT)), None
+    tc_h = np.zeros(B, np.int64)
+    tc_h[:nb] = -(-payload_word_counts(bit_len, L) // ragged.RICE_TILE)
+    total_tiles = min(
+        ragged.tile_bucket(int(tc_h.sum())),
+        B * (-(-W // ragged.RICE_TILE)),
+    )
+    return total_tiles, tc_h
+
+
 def compact_enc_payload_device(
     payload_dev, bit_len: np.ndarray, block_len: int, coder: str
 ) -> np.ndarray:
@@ -275,37 +310,21 @@ def compact_enc_payload_device(
     The device emits a tile-aligned semi-compact stream (kernels/ragged.py);
     the host fetches the exact semi prefix (<= a few % over compressed
     size) and squeezes the alignment gaps while assembling the frame.
-    Replaces the round-1 padded-row fetch (~156 MB for ~36 MB compressed at
-    the 128 MiB bench point — VERDICT item 2).
+    Replaces the round-1 padded-row fetch, several times the compressed
+    size (VERDICT item 2).
     """
     import jax.numpy as jnp
 
-    from dctpu.constants import subs_per_block, sync_words
+    from dctpu.constants import sync_words
     from dctpu.kernels import ragged
 
-    B, W = payload_dev.shape
     L = block_len
     nb = int(np.asarray(bit_len).size)  # real blocks
     if nb == 0:
         return np.zeros(0, np.uint32)
+    total_tiles, tc_h = semi_plan(payload_dev.shape, bit_len, L, coder)
     if coder == "vertical":
-        S = subs_per_block(L)
         SW = sync_words(L)
-        SWT = -(-SW // ragged.VERT_TILE)
-        RPT = ragged.REGION_PAD // ragged.VERT_TILE
-        # host upper bound on live tiles from bit_len: per block SWT sync
-        # tiles + ceil-per-sub body tiles <= ceil(body_words/TILE) + S - 1.
-        # Bucketed so the gather never pays for dead capacity (the full
-        # B*(SWT+S*RPT) cap measured 4x slower; bench/profile_compact.py).
-        body_words = int(np.asarray(bit_len, dtype=np.int64).sum()) // 32
-        ub = (
-            B * SWT
-            + nb * S
-            + -(-body_words // ragged.VERT_TILE)
-        )
-        total_tiles = min(
-            ragged.tile_bucket(ub), B * (SWT + S * RPT)
-        )
         semi_d, wc_sub_d = ragged.compact_vertical_semi(
             payload_dev, L, total_tiles
         )
@@ -320,21 +339,13 @@ def compact_enc_payload_device(
         np.cumsum(tc * ragged.VERT_TILE, out=src_off[1:])
         semi = np.asarray(semi_d[: int(src_off[-1])])
         return ragged.squeeze_host(semi, src_off[:-1], lens)
-    wc = payload_word_counts(bit_len, L)
-    tc_h = np.zeros(B, np.int64)
-    tc_h[:nb] = -(-wc // ragged.RICE_TILE)
-    # exact live tile count is host-known for rice; bucket the gather cap
-    total_tiles = min(
-        ragged.tile_bucket(int(tc_h.sum())),
-        B * (-(-W // ragged.RICE_TILE)),
-    )
     semi_d = ragged.compact_rice_semi(
         payload_dev, jnp.asarray(tc_h.astype(np.int32)), total_tiles
     )
     semi = np.asarray(semi_d[: int(tc_h.sum()) * ragged.RICE_TILE])
     src_off = np.zeros(nb, np.int64)
     np.cumsum(tc_h[: nb - 1] * ragged.RICE_TILE, out=src_off[1:])
-    return ragged.squeeze_host(semi, src_off, wc)
+    return ragged.squeeze_host(semi, src_off, payload_word_counts(bit_len, L))
 
 
 # ------------------------------------------------------------ public API
@@ -390,8 +401,6 @@ def _compress_adaptive(
     from dctpu.codec.encode import adaptive_select, emit_blocks
     from dctpu.constants import CODER_VERTICAL, LPC as _LPC
 
-    # backend plumbs into selection too: "xla" is the public opt-out from
-    # the fused Pallas totals kernels (ADVICE r4 low #1)
     select_fn = select_fn or (
         lambda x, n, h: adaptive_select(x, n, h, cfg, backend or "auto")
     )
@@ -570,7 +579,7 @@ def decompress(
     """Frame -> streams. Default path (backend=None): upload the compact
     disk words once and run ALL ragged staging on device (kernels/ragged.py)
     — only compressed bytes plus the decoded output cross the host link.
-    Explicit backends ("scan"/"xla"/"pallas") keep the host staging paths.
+    Explicit backends ("scan"/"scan_xla"/"xla") keep the host staging paths.
 
     decode_fn/round_to let dist.sharded reuse this exact staging logic with
     the shard_map decoder and mesh-divisible chunk sizes (so the sharded
@@ -606,10 +615,9 @@ def _decode_blocks_array(
 
     xs = np.zeros((B, L), dtype=np.int32)
     # shift-buffer decode family: all of these consume stage_rice_scan rows
-    # plus buf_words ("pallas" = compiled kernel, "scan_xla" = forced XLA
-    # scan, "scan" = auto). Staging them with the dense padded payload was
-    # ADVICE r2 medium #1.
-    use_scan = backend in (None, "scan", "pallas", "scan_xla")
+    # plus buf_words. Staging them with the dense padded payload was ADVICE
+    # r2 medium #1.
+    use_scan = backend in (None, "scan", "scan_xla")
     device_stage = backend is None
     flat_d = off_d = None
     off_host = frame.blocks.word_offsets(L)

@@ -7,9 +7,6 @@ the property the whole format is designed around.
 
 from __future__ import annotations
 
-import functools
-from typing import Tuple
-
 import jax
 import jax.numpy as jnp
 
@@ -32,28 +29,11 @@ def decode_blocks_body(
     max_planes: int = 32,
     buf_words: int = 0,
 ) -> jnp.ndarray:
+    kernels.check_backend(backend, kernels.UNPACK_BACKENDS)
     if coder == "vertical":
-        # XLA decoder only (r4): the Pallas decode twin was retired after
-        # losing every on-chip head-to-head (r3: 8.12 vs 3.60 GB/s at
-        # max_planes=16, 7.91 vs 2.97 at 32 — VMEM scope capped its tiles
-        # at 64-128 rows) and consumed the pre-r4 fixed region layout; the
-        # packed-row layout made it moot (see vertical_xla REGION_PAD
-        # note). History: git log dctpu/kernels/vertical_pallas.py.
-        if (
-            backend not in ("xla",)
-            and block_len % 128 == 0
-            and jax.default_backend() == "tpu"
-        ):
-            # r5 production default: VMEM-resident decode mega-kernel
-            # (kernels/vdec_pallas); "xla" is the portable opt-out and
-            # non-multiple-of-128 block lengths fall back below.
-            from dctpu.kernels.vdec_pallas import decode_vertical_mega
+        from dctpu.kernels.vertical_xla import decode_vertical
 
-            z = decode_vertical_mega(payload, n, block_len)
-        else:
-            from dctpu.kernels.vertical_xla import decode_vertical
-
-            z = decode_vertical(payload, n, block_len, max_planes)
+        z = decode_vertical(payload, n, block_len, max_planes)
     else:
         z = kernels.unpack(
             payload, k, n, block_len, backend, buf_words

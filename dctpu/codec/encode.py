@@ -8,7 +8,6 @@ data-dependent shapes anywhere; selection is gather/where, not control flow.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -34,8 +33,8 @@ def _cand_z_fn(x, history, cands, cfg):
     One closure instead of stacking [C, B, L]: each candidate's residual ->
     zigzag -> consumer fuses into one read of x, and the winner's z is
     re-derived with a masked accumulation that fuses into the same
-    producers — the [C, B, L] arrays of round 1 (2 x 6 x input size of HBM
-    traffic, round-1 VERDICT weak #6) never exist.
+    producers — no [C, B, L] array (2 x 6 x input size of device-memory
+    traffic) ever exists.
     """
 
     def f(ci):
@@ -66,6 +65,7 @@ def _emit_selected(
     by the adaptive host driver). Round-2 VERDICT weak #8: these existed
     twice and had to be kept byte-identical by hand.
     """
+    kernels.check_backend(backend)
     B, L = x.shape
     valid = jnp.arange(L, dtype=jnp.int32)[None, :] < n[:, None]
     cands = cfg.candidates()
@@ -92,25 +92,7 @@ def _emit_selected(
     if coder == "vertical":
         from dctpu.kernels.vertical_xla import encode_vertical
 
-        # backend selects the exception-extraction kernel (the only stage
-        # with a Pallas fast path); everything else is shared XLA. "auto"
-        # now resolves to the XLA extraction: in the r4 fused encode it
-        # wins the on-chip head-to-head (1.50 vs 3.90 ms isolated, 34.1 vs
-        # 36.7 ms full encode at 128 MiB — bench/profile_vemit.py; the r1
-        # measurement that favored Pallas predates the fused emission,
-        # where XLA re-read the sub-shaped arrays ~20x). backend="pallas"
-        # still forces the Pallas kernel (bit-exact, smoke-gated via the
-        # encode compile).
-        exc = "xla"
-        if backend.startswith("pallas"):
-            exc = "pallas"
-        elif backend != "xla" and jax.default_backend() == "tpu":
-            # r5 production default: the VMEM-resident emit mega-kernel
-            # (vemit_pallas; 19.95 vs 32.57 ms at 128 MiB on chip,
-            # bit-identical — bench/profile_vemit.py --full). "xla" stays
-            # the portable opt-out diffed by the smoke gate.
-            exc = "mega"
-        payload, bit_len = encode_vertical(z, n, L, exc_backend=exc)
+        payload, bit_len = encode_vertical(z, n, L)
         k = jnp.zeros(B, jnp.int32)
     else:
         code_lo, code_hi, length = rice.codewords(z, k[:, None])
@@ -147,9 +129,7 @@ def encode_blocks_body(
         # (rice.choose_k_planes) fused per candidate.
         ks, bits = [], []
         for ci in range(C):
-            k_i, bits_i = rice.choose_k_auto(
-                cand_z(ci), n, L, cfg.k_max, backend
-            )
+            k_i, bits_i = rice.choose_k_planes(cand_z(ci), n, L, cfg.k_max)
             ks.append(k_i)
             bits.append(bits_i)
         k_c, bits_c = jnp.stack(ks), jnp.stack(bits)  # [C, B]
@@ -182,73 +162,26 @@ def adaptive_select_body(
     k [B] i32). Option order c0-RICE, c0-VERT, c1-RICE, ... with first-wins
     argmin implements the normative tie-break.
 
-    backend: "auto" (= "bp") uses the fused select_bp v3 Pallas totals
-    kernels on TPU; "reduce" the r4 select_pallas reduction kernel;
-    "xla" forces the portable formulation — the smoke gate diffs auto
-    against xla on chip at production-shaped geometry (r4
-    selection-miscompile incident).
+    backend: any encode-side name of kernels.api (selection itself has one
+    formulation: choose_k_planes + vertical_total_words per candidate).
     """
     from dctpu.kernels.vertical_xla import vertical_total_words
 
+    kernels.check_backend(backend)
     B, L = x.shape
     valid = jnp.arange(L, dtype=jnp.int32)[None, :] < n[:, None]
     cands = cfg.candidates()
     C = len(cands)
     cand_z = _cand_z_fn(x, history, cands, cfg)
 
-    # per-candidate fused passes — no [C, B, L] stack (see _cand_z_fn).
-    # On TPU the default ("auto"/"bp") is the select_bp v3 bit-plane
-    # family: DELTA/DOUBLE_DELTA totals derive in-register from ONE read
-    # of x (adaptive_totals_xbp) and each LPC candidate costs one z read
-    # (adaptive_totals_bp) — 47.0 ms vs 94.0 for the r4 reduction kernel
-    # at 128 MiB, bit-identical (bench/profile_select.py). The r4
-    # select_pallas reduction kernel remains as backend="reduce" for
-    # A/B; "xla" is the portable formulation (the public kernel opt-out,
-    # and the reference half of the smoke gate's production-shaped
-    # divergence check — the r4 miscompile incident's lesson, see
-    # select_bp.py docstring).
-    use_fused = backend != "xla" and jax.default_backend() == "tpu"
-    use_bp = use_fused and backend != "reduce"
-    xbp_res = None
+    # per-candidate fused passes — no [C, B, L] stack (see _cand_z_fn)
     ks, rws, vws = [], [], []
-    k_axis = jnp.arange(cfg.k_max + 1, dtype=jnp.int32)
     for ci in range(C):
-        if use_fused:
-            from dctpu.constants import DELTA, DOUBLE_DELTA
-
-            pred = cands[ci][0]
-            if use_bp and pred in (DELTA, DOUBLE_DELTA):
-                # v3 in-register candidate derivation: one x read covers
-                # both shift predictors (select_bp.adaptive_totals_xbp)
-                from dctpu.kernels.select_bp import adaptive_totals_xbp
-
-                if xbp_res is None:
-                    xbp_res = adaptive_totals_xbp(
-                        x, history, n, L, cfg.k_max
-                    )
-                gi = 0 if pred == DELTA else 1
-                totals, vword = xbp_res[0][gi], xbp_res[1][gi]
-            else:
-                if use_bp:
-                    from dctpu.kernels.select_bp import (
-                        adaptive_totals_bp as _tot,
-                    )
-                else:
-                    from dctpu.kernels.select_pallas import (
-                        adaptive_totals_pallas as _tot,
-                    )
-
-                totals, vword = _tot(cand_z(ci), n, L, cfg.k_max)
-            key = jnp.min(totals * 32 + k_axis, axis=-1)
-            k_i = (key & 31).astype(jnp.int32)
-            bits_i = key >> 5
-            vws.append(vword)
-        else:
-            z_c = cand_z(ci)
-            k_i, bits_i = rice.choose_k_auto(z_c, n, L, cfg.k_max, backend)
-            vws.append(vertical_total_words(z_c, valid, L))
+        z_c = cand_z(ci)
+        k_i, bits_i = rice.choose_k_planes(z_c, n, L, cfg.k_max)
         ks.append(k_i)
         rws.append((bits_i + 31) // 32)
+        vws.append(vertical_total_words(z_c, valid, L))
     k_c = jnp.stack(ks)                                         # [C, B]
     rw_c, vw_c = jnp.stack(rws), jnp.stack(vws)                 # [C, B]
     opts = jnp.stack([rw_c, vw_c], axis=1).reshape(2 * C, B)

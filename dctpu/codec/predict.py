@@ -1,6 +1,6 @@
 """Vectorized predictor stage over [num_blocks, block_len] arrays.
 
-TPU-first design (SURVEY.md §2.1): the reference's per-sample C loops become
+Array design (SURVEY.md §2.1): the reference's per-sample C loops become
 whole-array shift/subtract ops for the forward pass (all predictors — including
 LPC — are vectorizable at encode time because the true history is available),
 and scan-based reconstruction for decode:
@@ -12,7 +12,8 @@ and scan-based reconstruction for decode:
     parallel across all blocks [B:5 "delta→scan-based parallel prediction"].
 
 All arithmetic wraps in int32 (int64 for the LPC accumulator) per
-docs/FORMAT.md §3, keeping every predictor exactly invertible.
+docs/FORMAT.md §3, keeping every predictor exactly invertible. A GPU
+emulates int64 on its 32-bit integer units; the results stay exact.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Scalar reference codec — the executable specification of docs/FORMAT.md.
 
 Deliberately simple (Python bigints for bit I/O, per-sample loops for LPC): this
-is the clarity-first arbiter that the C++ oracle, the XLA codec and the Pallas
-kernels are all tested against byte-for-byte. It is NOT a performance path.
+is the clarity-first arbiter that the C++ oracle and the XLA codec are both
+tested against byte-for-byte. It is NOT a performance path.
 
 Mirrors the reference C codec's serial encode/decode call stack (SURVEY.md §3)
 in structure: select_predictor → residuals → zigzag → choose k → rice emit.

@@ -1,10 +1,10 @@
 """Multi-host data-parallel encode: global mesh over all processes' chips.
 
 SURVEY.md §3 E3 / §2.2 "Multi-host DP": each host feeds its local shard of the
-block batch into a global-mesh jit; XLA handles ICI/DCN collectives implied by
+block batch into a global-mesh jit; XLA handles the collectives implied by
 the shardings. The compressed-size gather is the one genuinely multi-host step:
 
-  1. all processes allgather per-block bit lengths (small, DCN),
+  1. all processes allgather per-block bit lengths (small, over the network),
   2. every process computes the global frame layout with the same exclusive
      scan (deterministic -> no coordination needed),
   3. payload words are gathered with a padded allgather over per-process
@@ -32,13 +32,21 @@ def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
-    """jax.distributed.initialize wrapper (no-op if already initialized)."""
+    """jax.distributed.initialize wrapper (no-op if already initialized).
+
+    local_device_ids: the local GPUs this process opens. Without it every
+    process of a multi-process run on one host opens every visible GPU and
+    reserves most of each card's memory, so one process per card needs
+    e.g. local_device_ids=[process_id].
+    """
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     except RuntimeError as e:  # already initialized
         if "already" not in str(e):
@@ -60,19 +68,24 @@ def compress_multihost(
     then per-process stream order); other hosts return None.
 
     Payload gather modes (round-1 VERDICT item 6 — the padded allgather
-    ships every host's payload to every host, O(P^2) bytes on DCN):
+    ships every host's payload to every host, O(P^2) bytes on the network):
 
       "allgather"  padded process_allgather (in-memory; fine for few hosts)
       "files"      each host writes its ordered compact shard to parts_dir
                    (shared filesystem) with an atomic rename; host 0 reads
                    them after a barrier. Bytes moved: O(total compressed)
-                   to storage, only small metadata on DCN.
+                   to storage, only small metadata on the network.
       "auto"       "files" when parts_dir is given, else "allgather".
     """
     from dctpu.codec import api as capi
     from dctpu.format.frame import BlockHeaders, Frame, StreamMeta
 
     cfg = cfg or CodecConfig()
+    if cfg.coder == "adaptive":
+        raise NotImplementedError(
+            "compress_multihost encodes one coder per frame (rice or "
+            "vertical); the adaptive coder is single-process only"
+        )
     mesh = make_mesh()
     nproc = jax.process_count()
     pid = jax.process_index()
@@ -106,7 +119,7 @@ def compress_multihost(
         shards = sorted(garr.addressable_shards, key=lambda s: s.index[0].start or 0)
         return np.concatenate([np.asarray(s.data) for s in shards], axis=0)
 
-    # Small metadata: allgather global copies (DCN).
+    # Small metadata: allgather global copies (network).
     def _gather_rows(garr) -> np.ndarray:
         local = _local_rows(garr)
         return np.asarray(multihost_utils.process_allgather(local)).reshape(

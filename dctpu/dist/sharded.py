@@ -3,7 +3,7 @@
 Design (SURVEY.md §2.2, §3 E3): blocks are embarrassingly parallel, so each
 device runs the identical jitted codec body on its shard of the [B, L] block
 batch. Small shared state (LPC coefficient tables) is passed replicated —
-GSPMD broadcasts it over ICI once. Results come back as global arrays in
+XLA broadcasts it to every device once. Results come back as global arrays in
 block-table order, which IS the ordered gather: the frame assembler reads
 global arrays index-ordered, so no reordering collective is needed; only the
 host-side compaction walks the (sharded) payload in order.
@@ -69,7 +69,7 @@ def decode_blocks_sharded(
     predictor: jnp.ndarray,
     table_idx: jnp.ndarray,
     history: jnp.ndarray,
-    table_coeffs: jnp.ndarray,  # [T, 4] i64 — replicated (ICI broadcast)
+    table_coeffs: jnp.ndarray,  # [T, 4] i64 — replicated
     block_len: int,
     has_lpc: bool,
     mesh: Mesh,
@@ -108,10 +108,7 @@ def adaptive_select_sharded(
 ):
     """shard_map wrapper of the FORMAT §4.1 (candidate, coder) selection.
 
-    backend plumbs through to adaptive_select_body ("xla" forces the
-    portable selection formulation — the public opt-out from the fused
-    Pallas totals kernel, ADVICE r4 medium). The smoke gate diffs the
-    sharded auto-vs-xla selections on chip (tpu_smoke section 1c).
+    backend plumbs through to adaptive_select_body, which checks it.
     """
     from dctpu.codec.encode import adaptive_select_body
 

@@ -2,12 +2,9 @@
 
 Interchangeable backends behind one interface (dispatch in
 dctpu.kernels.api):
-  - pack_scan / unpack_scan: the production XLA kernels ("auto" picks —
-    they won every on-chip head-to-head).
-  - pack_xla / unpack_xla: pure-XLA v0 — the permanent, CPU-testable
-    fallback that also serves as the executable kernel spec.
-  - attic/pack_pallas, attic/unpack_pallas: retired Pallas twins, kept for
-    regression tests only (see attic/__init__.py for the numbers).
+  - pack_scan / unpack_scan: the production formulations ("auto" picks).
+  - pack_merge: the unrolled merge-tree packer pack_scan builds on.
+  - pack_xla / unpack_xla: scatter/gather v0 — the executable kernel spec.
 """
 
 from dctpu.kernels.api import pack, unpack  # noqa: F401

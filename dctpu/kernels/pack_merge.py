@@ -1,17 +1,16 @@
 """Dense Rice bit packer: hierarchical funnel-shift merge, no scatter/gather.
 
-Replaces pack_xla's scatter-OR (XLA lowers TPU scatters to ~10 ns/element
-serial loops; measured 0.11 GB/s) with a balanced merge tree over bit-strings:
+Replaces pack_xla's scatter-OR with a balanced merge tree over bit-strings:
 
   level 0:  every sample is a (codeword, length<=48) bit-string
   level l:  merge node pairs:  (a, la) + (b, lb) -> (a | b << la, la + lb)
 
 `b << la` is a word-funnel shift (dense u32 ops) followed by a barrel word
 roll (log2(max words) masked static shifts) — every step is an elementwise op
-or a static slice, so XLA keeps the VPU lanes full. Output is bit-identical
+or a static slice. Output is bit-identical
 to pack_xla (same LSB-first stream, same sync table, zero padding).
 
-Two phases keep TPU layouts sane (minor dim must stay wide):
+Two phases keep the minor dimension wide:
   A. word-of-lists: the node buffer is W separate [B, nodes] arrays
      (nodes is the minor dim) while W < nodes;
   B. tensor: one [B, nodes, W] array once W >= nodes (W is the minor dim).
@@ -134,7 +133,7 @@ def pack_merge(
     lens = length
     mb = MAX_CODE_BITS
     # Phase A: lists of [B, nodes] arrays while the word count is below the
-    # node count (keeps the minor dim wide for TPU lane tiling).
+    # node count (keeps the minor dim wide).
     while lens.shape[1] > 1 and len(words) < 48:
         words, lens, mb = _merge_split(words, lens, mb)
 

@@ -1,7 +1,7 @@
 """Chunked-scan Rice bit packer: bounded-depth merge, compile-stable at any B.
 
 Bit-identical to pack_xla/pack_merge (same DCF1 §2/§2.1 stream), but built to
-fix pack_merge's two measured problems on TPU (round-1 VERDICT weak #3):
+fix pack_merge's two compile-time problems (round-1 VERDICT weak #3):
 
   * pack_merge unrolls log2(L) = 12 merge levels into HLO whose tensor shapes
     change at every level — XLA's layout/fusion passes take minutes at
@@ -23,8 +23,9 @@ only the top log2(L/16) levels are unrolled merges:
 
 Bit-string concatenation is associative with zero-length identities, so the
 different grouping yields byte-identical output (cross-tested in
-tests/test_pack_merge.py). The Pallas twin (pack_pallas) runs the identical
-schedule with the scan state VMEM-resident.
+tests/test_pack_merge.py). The scan writes its [B, P, 24] state to device
+memory at every step; a fused kernel that keeps it on chip is the obvious
+optimisation, once a profile ranks this stage.
 
 Reference interface parity: SURVEY.md §2.1 "Bit-packer (hot)"; replaces the
 serial put_bits loop of SURVEY.md §3 (encode hot loop).

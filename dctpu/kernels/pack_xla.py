@@ -12,9 +12,11 @@ with the parallel-entropy-coding pattern mandated by the north star [B:5]:
   4. contributions from different codewords occupy disjoint bit ranges, so a
      scatter-ADD over the payload words is exactly a scatter-OR.
 
-All shifts are uint32 with explicit s==0 guards (no 64-bit ops on the TPU hot
-path). Fixed-shape output: W = sync_words + ceil(L*48/32) words per block (XLA
-needs static shapes); compaction to actual sizes happens at frame assembly.
+All shifts are uint32 with explicit s==0 guards (no 64-bit ops on the hot
+path). The scatter-ADD is order-independent for integers, so GPU atomics give
+the same words in any order. Fixed-shape output: W = sync_words +
+ceil(L*48/32) words per block (XLA needs static shapes); compaction to
+actual sizes happens at frame assembly.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """VERTICAL coder kernels (docs/FORMAT.md §2.2): dense vector ops end to end.
 
-The TPU-throughput coder. Unlike Rice pack/unpack — whose per-sample variable
-bit offsets force scatters/gathers that XLA lowers to ~10ns/element loops on
-TPU (measured, SURVEY round 1) — every step here is a fixed-shape elementwise
-op, reduction, or static-strided reshape:
+The throughput coder. Unlike Rice pack/unpack — whose per-sample variable
+bit offsets need scans, scatters or gathers — every step here is a
+fixed-shape elementwise op, reduction, or static-strided reshape:
 
   encode: width sweep (33 masked reductions) -> 32 bit-plane transposes
           (shift+sum over static lanes) -> EXC_CAP=16 dense rank-match passes
@@ -41,17 +40,12 @@ VAL_REGION = EXC_CAP           # 16 exception value words
 REGION_WORDS = PLANE_REGION + POS_REGION + VAL_REGION  # 148
 # Device payload rows carry each sub's live prefix (the EXACT disk words:
 # pw*b plane words, ceil(n_exc/4) pos words, vw value words — FORMAT §2.2)
-# in a REGION_PAD-word slot. REGION_PAD = REGION_WORDS padded to the
-# VERT_TILE compaction lattice (kernels/ragged.py). Round 4: the packed
-# layout replaced the fixed stride-4 region layout everywhere on device —
-# the encoder emits it directly and the decoder consumes it, so compaction
-# is a pure segment gather and decode staging a pure window gather (the
-# repack/unpack barrel rolls fused into the encode/decode kernels; they
-# previously cost a full extra HBM round trip in each direction).
-# Round 5: 148 -> 192 words (VERT_TILE went 16 -> 64: tile-row gathers hit
-# the fast per-index path only at 256-byte rows — bench/profile_compact.py
-# measured the compact gather at 31 ns/idx @16w vs 18 ns/idx @64w, 24.6 ->
-# 3.6 ms at 128 MiB; the slot must stay a tile multiple).
+# in a REGION_PAD-word slot. REGION_PAD = REGION_WORDS padded to a multiple
+# of the VERT_TILE compaction lattice (kernels/ragged.py). The encoder emits
+# the packed layout directly and the decoder consumes it, so compaction is
+# a pure segment gather and decode staging a pure window gather. The value
+# is device-only (the disk format does not depend on it) and has not been
+# tuned on the H100.
 REGION_PAD = 192
 
 
@@ -185,9 +179,7 @@ def exceed_counts(zs: jnp.ndarray) -> jnp.ndarray:
     plane p into a per-plane bitmask over 32 samples, and popcount counts it.
 
     Callers that already hold the transposed plane words should use
-    exceed_from_planes instead (saves this second transpose — the r4 emit
-    micro-profile measured the duplicated transpose at ~10 ms of the 36 ms
-    encode at 128 MiB).
+    exceed_from_planes instead (saves this second transpose).
     """
     m = _smear(zs)
     mg = m.reshape(m.shape[:-1] + (4, 32))
@@ -236,11 +228,8 @@ def _select_width(
     # dominates every legal width and the packed key below stays in int31
     # (words*64 + b < 2^31 requires words < 2^25; the sentinel is 2^24).
     assert PLANE_REGION + POS_REGION + VAL_REGION < (1 << 24)
-    # Unrolled min over b on [..., S] slices: the [..., S, 33]-shaped
-    # formulation put a 33-wide minor axis on the VPU (terrible lane use —
-    # the r4 emit micro-profile measured the sweep at ~7 ms); per-b slices
-    # keep every op on the natural [..., S] layout. Packed (words, b) key:
-    # ties pick the smallest b. Bit-identical to the r3 formulation.
+    # Unrolled min over b on [..., S] slices, so no op carries a 33-wide
+    # minor axis. Packed (words, b) key: ties pick the smallest b.
     best_key = None
     for b in range(33):
         n_exc_b = n_exc_all[..., b]
@@ -304,10 +293,7 @@ def exc_extract_xla(
     """(pos_words [B, S, 4], vals [B, S, 16]) — pure-XLA rank-match passes.
 
     is_exc == (bitlen > b) & (b < 32) == (zs >> b) != 0, since zs is zeroed on
-    invalid lanes. Values: EXC_CAP reduction passes (measured alternatives
-    that LOSE on this TPU: take_along_axis gathers ~10 ms, and a single
-    reduce over a broadcast [B, S, EXC, 128] expansion — 16x the VPU compute,
-    ~2x slower). Positions: only 4 passes — each position is <= 7 bits and
+    invalid lanes. Values: EXC_CAP reduction passes. Positions: only 4 passes — each position is <= 7 bits and
     the output packs 4 per word, so a sample's position is shifted straight
     into its output byte (idx << 8*(rank&3)) and summed into word rank>>2.
     No masking past n_exc is needed anywhere: ranks only count exceptions, so
@@ -351,52 +337,31 @@ def encode_vertical(
     z: jnp.ndarray,  # [B, L] u32 zigzag values
     n: jnp.ndarray,  # [B] i32
     block_len: int,
-    exc_backend: str = "xla",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Returns (payload [B, W] u32, bit_len [B] i32). Dense ops only.
-
-    exc_backend: "mega" runs the whole per-sub analysis (transpose, width
-    select, exception extraction) as ONE VMEM pass
-    (kernels/vemit_pallas.py); "pallas"/"xla" select only the exception
-    extractor, with the analysis staged in XLA."""
+    """Returns (payload [B, W] u32, bit_len [B] i32). Dense ops only."""
     B, L = z.shape
     subs = subs_per_block(block_len)
-    SW = sync_words(block_len)
 
-    if exc_backend == "mega":
-        from dctpu.kernels.vemit_pallas import vertical_emit_mega
+    zs, valid = _sub_shape(z, n, block_len)  # [B, S, 128]
+    pw = _plane_word_counts(block_len)[None, :]  # [1, S]
 
-        (plane_region, best_b, best_words, best_exc, best_e, pos_words,
-         vals) = vertical_emit_mega(z, n, block_len)
-        bit_len = 32 * jnp.sum(best_words, axis=1)
-    else:
-        zs, valid = _sub_shape(z, n, block_len)  # [B, S, 128]
-        pw = _plane_word_counts(block_len)[None, :]  # [1, S]
+    # ---- bit planes first: 32x32 bit-matrix transpose per group ----
+    zg = zs.reshape(B, subs, 4, 32)  # word groups of 32 samples
+    pw_by_group = bit_transpose32(zg)  # [B, S, 4w, 32p]
+    plane_words = jnp.swapaxes(pw_by_group, 2, 3)  # [B, S, 32p, 4w]
+    plane_region = plane_words.reshape(B, subs, PLANE_REGION)
 
-        # ---- bit planes first: 32x32 bit-matrix transpose per group ----
-        zg = zs.reshape(B, subs, 4, 32)  # word groups of 32 samples
-        pw_by_group = bit_transpose32(zg)  # [B, S, 4w, 32p]
-        plane_words = jnp.swapaxes(pw_by_group, 2, 3)  # [B, S, 32p, 4w]
-        plane_region = plane_words.reshape(B, subs, PLANE_REGION)
+    # ---- width selection: argmin words over b, n_exc <= EXC_CAP ----
+    # zs is zeroed outside `valid`, so zero samples never count as
+    # exceeding any plane. The exceed table comes from the plane words
+    # above (suffix-OR + popcount), so the 32x32 transpose runs once.
+    best_b, best_words, best_exc, best_e = _select_width(
+        exceed_from_planes(pw_by_group), pw
+    )
+    bit_len = 32 * jnp.sum(best_words, axis=1)
 
-        # ---- width selection: argmin words over b, n_exc <= EXC_CAP ----
-        # zs is zeroed outside `valid`, so zero samples never count as
-        # exceeding any plane. The exceed table comes from the plane words
-        # above (suffix-OR + popcount) — the r3 smear+second-transpose
-        # formulation duplicated the 32x32 transpose over the whole input
-        # (~10 ms at 128 MiB, emit micro-profile).
-        best_b, best_words, best_exc, best_e = _select_width(
-            exceed_from_planes(pw_by_group), pw
-        )
-        bit_len = 32 * jnp.sum(best_words, axis=1)
-
-        # ---- exceptions: rank-match extraction ----
-        if exc_backend == "pallas":
-            from dctpu.kernels.vertical_pallas import exc_extract_pallas
-
-            pos_words, vals = exc_extract_pallas(zs, best_b)
-        else:
-            pos_words, vals = exc_extract_xla(zs, best_b)
+    # ---- exceptions: rank-match extraction ----
+    pos_words, vals = exc_extract_xla(zs, best_b)
 
     # ---- exception values (FORMAT §2.2): raw layout when n_exc <= ceil(e/2),
     # else bit-planed — value-plane p holds bit p of every value on its 16
@@ -421,8 +386,7 @@ def encode_vertical(
     # ---- packed region emission (round 4): each sub's REGION_PAD slot
     # holds its live prefix — the exact disk words. The pack (plane group
     # reshape + pos-gap close + b-indexed roll) fuses into the producers
-    # above; the old fixed-layout region plus its separate repack pass in
-    # compaction cost a full extra HBM round trip.
+    # above, so compaction needs no separate repack pass.
     import numpy as np
 
     groups, pws = _pw_groups(block_len)
@@ -460,7 +424,6 @@ def encode_vertical(
     # place the 20-word tail at word pw*b: a 33-way chain of static pads
     # selected by b — XLA fuses it into ONE output pass, vs the 6
     # masked-shift barrel passes over the full [B, S, REGION_PAD] row
-    # (measured ~12 ms at 128 MiB)
     rolled = jnp.zeros_like(packed)
     TW = REGION_WORDS - PLANE_REGION
     for pwv, subs_list in groups.items():
@@ -530,8 +493,8 @@ def decode_vertical(
     b_i = b.astype(jnp.int32)[:, :, None]
     TW = REGION_WORDS - PLANE_REGION
     # tail extraction: 20 words starting at pw*b — a 33-way chain of
-    # static slices selected by b (one fused output pass; the masked-shift
-    # barrel cost 6 passes over the whole row, ~12 ms at 128 MiB)
+    # static slices selected by b (one fused output pass instead of the 6
+    # masked-shift barrel passes over the whole row)
     if set(groups) == {4}:
         planes = span[:, :, :PLANE_REGION]
         tail20 = jnp.zeros((B, subs, TW), jnp.uint32)

@@ -1,8 +1,10 @@
 """ctypes bindings for the native host-transform library (native/).
 
-Loads native/libdctpu_host.so when present (builds lazily via make if the
-toolchain is available); every entry point has a numpy fallback, so the
-package works without the native library — just slower host assembly.
+Loads native/libdctpu_host.so, building it from native/host_transforms.cpp
+with `make -C native` at first use (the library is not tracked by git).
+Every entry point has a numpy fallback, so the package works without the
+native library — just slower host assembly; `load_error` says why the
+fallback was taken.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ _REPO = Path(__file__).resolve().parent.parent
 _LIB_PATH = _REPO / "native" / "libdctpu_host.so"
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+load_error: Optional[str] = None  # why the numpy fallback is in use
 
 _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -26,7 +29,7 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, load_error
     if _lib is not None or _tried:
         return _lib
     _tried = True
@@ -34,13 +37,18 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             subprocess.run(
                 ["make", "-C", str(_REPO / "native")],
-                check=True, capture_output=True, timeout=120,
+                check=True, capture_output=True, text=True, timeout=120,
             )
-        except Exception:
+        except subprocess.CalledProcessError as e:
+            load_error = f"make -C native failed: {e.stderr.strip()[-500:]}"
+            return None
+        except (OSError, subprocess.TimeoutExpired) as e:
+            load_error = f"make -C native: {e}"
             return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
+    except OSError as e:
+        load_error = f"loading {_LIB_PATH.name}: {e}"
         return None
     lib.dctpu_vert_block_words.argtypes = [
         _u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, _i64p,

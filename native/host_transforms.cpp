@@ -1,6 +1,6 @@
 // libdctpu_host — native host-side ragged layout transforms.
 //
-// The TPU-native runtime's host half (SURVEY.md §2.1 "C++ host bitstream
+// The codec runtime's host half (SURVEY.md §2.1 "C++ host bitstream
 // assembly"): converts between the device's fixed-shape payload regions and
 // the canonical DCF1 disk layout. These are memory-bound gather/scatter loops
 // that numpy fancy indexing runs at ~140 ns/element; here they are simple

@@ -1,7 +1,7 @@
 // dcomp_oracle — scalar C++ implementation of the DCF1 codec (docs/FORMAT.md).
 //
 // Role (SURVEY.md §2.1 "Oracle codec"): the native bit-exactness target that the
-// JAX/XLA/Pallas implementations are tested against byte-for-byte. The original
+// JAX/XLA implementations are tested against byte-for-byte. The original
 // C reference is unavailable in this environment (SURVEY.md §0); when it
 // appears, cross-check this oracle against it and swap it in as the arbiter.
 //

@@ -115,32 +115,3 @@ def test_oracle_adaptive_matches(tmp_path, oracle_bin, rng):  # noqa: F811
     for a, b in zip(streams, out):
         assert np.array_equal(a, b)
 
-
-def test_adaptive_totals_pallas_matches_xla(rng):
-    """r4 fused selection kernel == (choose_k_planes, vertical_total_words)."""
-    import jax.numpy as jnp
-
-    from dctpu.codec import rice
-    from dctpu.kernels.select_pallas import adaptive_totals_pallas
-    from dctpu.kernels.vertical_xla import vertical_total_words
-
-    for L in (256, 200):
-        B = 9
-        z = (rng.geometric(0.02, size=(B, L)) - 1).astype(np.uint32)
-        z[0, 5] = 0xFFFFFFFF  # escape-heavy lane
-        z[1] = 0
-        n = np.full(B, L, np.int32)
-        n[-1] = 3
-        n[-2] = 0
-        zj, nj = jnp.asarray(z), jnp.asarray(n)
-        totals, vwords = adaptive_totals_pallas(zj, nj, L, 24, interpret=True)
-        # rice: same packed-key argmin as choose_k_planes
-        ks = jnp.arange(25, dtype=jnp.int32)
-        key = jnp.min(totals * 32 + ks, axis=-1)
-        k_w, bits_w = rice.choose_k_planes(zj, nj, L, 24)
-        assert np.array_equal(np.asarray(key & 31), np.asarray(k_w))
-        assert np.array_equal(np.asarray(key >> 5), np.asarray(bits_w))
-        valid = jnp.arange(L, dtype=jnp.int32)[None, :] < nj[:, None]
-        zv = jnp.where(valid, zj, jnp.uint32(0))
-        want_v = vertical_total_words(zv, valid, L)
-        assert np.array_equal(np.asarray(vwords), np.asarray(want_v))

@@ -85,22 +85,3 @@ def test_scan_batch_mapping(monkeypatch):
     assert np.array_equal(np.asarray(p1), np.asarray(p2))
     assert np.array_equal(np.asarray(b1), np.asarray(b2))
 
-
-def test_pallas_batch_mapping(monkeypatch):
-    import sys
-
-    import dctpu.kernels.attic.pack_pallas  # noqa: F401 (module, not the
-    # re-exported function — attic/__init__ shadows the submodule name)
-    pp = sys.modules["dctpu.kernels.attic.pack_pallas"]
-
-    rng = np.random.default_rng(10)
-    B, L = 20, 256
-    z = rng.integers(0, 500, size=(B, L)).astype(np.uint32)
-    k = rng.integers(0, 6, size=(B, 1)).astype(np.int32)
-    valid = jnp.ones((B, L), bool)
-    lo, hi, ln = rice.codewords(jnp.asarray(z), jnp.asarray(k))
-    p1, b1 = pp.pack_pallas(lo, hi, ln, valid, L, interpret=True)
-    monkeypatch.setattr(pp, "BATCH_ROWS", 8)
-    p2, b2 = pp.pack_pallas(lo, hi, ln, valid, L, interpret=True)
-    assert np.array_equal(np.asarray(p1), np.asarray(p2))
-    assert np.array_equal(np.asarray(b1), np.asarray(b2))

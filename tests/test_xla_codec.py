@@ -1,7 +1,7 @@
 """XLA codec vs scalar reference: byte-identical frames, bit-exact decode.
 
 SURVEY.md §4 "Oracle"/"Property" tiers for the device path (CPU backend here;
-the same jitted functions run on TPU unchanged).
+the same jitted functions run on the GPU unchanged).
 """
 
 import numpy as np
@@ -96,33 +96,3 @@ def test_choose_k_planes_matches_choose_k(rng):
         assert np.array_equal(np.asarray(k1), np.asarray(k2))
         assert np.array_equal(np.asarray(b1), np.asarray(b2))
 
-
-def test_rice_totals_pallas_matches_choose_k(rng):
-    """select_pallas totals (interpret) are bit-identical to choose_k and
-    choose_k_planes, escapes and ragged tails included."""
-    import jax.numpy as jnp
-
-    from dctpu.codec import rice
-    from dctpu.kernels.select_pallas import rice_totals_pallas
-
-    L = 384
-    B = 7
-    z = rng.integers(0, 2**32, size=(B, L), dtype=np.uint64).astype(np.uint32)
-    z[1] = 0
-    z[2, ::3] = np.uint32(2**31)  # escape-heavy
-    n = np.array([L, 1, L, 37, 130, 128, 300], np.int32)
-    valid = np.arange(L)[None, :] < n[:, None]
-    zm = np.where(valid, z, 0).astype(np.uint32)
-
-    totals = np.asarray(
-        rice_totals_pallas(jnp.asarray(z), jnp.asarray(n), L, 24,
-                           interpret=True)
-    )
-    ks = jnp.arange(25, dtype=jnp.int32)
-    key = jnp.min(jnp.asarray(totals) * 32 + ks, axis=-1)
-    k_k, bits_k = np.asarray(key & 31), np.asarray(key >> 5)
-
-    k1, b1 = rice.choose_k(jnp.asarray(zm), jnp.asarray(valid), 24)
-    k2, b2 = rice.choose_k_planes(jnp.asarray(z), jnp.asarray(n), L, 24)
-    assert np.array_equal(k_k, np.asarray(k1)) and np.array_equal(bits_k, np.asarray(b1))
-    assert np.array_equal(k_k, np.asarray(k2)) and np.array_equal(bits_k, np.asarray(b2))
